@@ -1,4 +1,4 @@
-// Native IO runtime for orbslam3_tpu: binary vocabulary load/save and
+// Native IO runtime for orbslam3_jax: binary vocabulary load/save and
 // fast dataset CSV parsing.
 //
 // The reference fork's flagship addition is a binary DBoW2 vocabulary

@@ -6,18 +6,18 @@ pairs with the vocabulary's direct index: features are grouped by their
 node at level L-levelsup (levelsup=4) and only same-node pairs are scored
 (`/root/reference/src/ORBmatcher.cc:323,1138`; `Frame.cc:865`
 `TemplatedVocabulary::transform` returning a FeatureVector). This repo
-replaced that with the full (N,M) bit-matmul on the MXU (`ops/bow.py`,
+replaced that with the full (N,M) bit-matmul (`ops/bow.py`,
 `ops/matching.py::hamming_matrix`) — defensible at 1k features, but the
 round-3 verdict asked for the MEASUREMENT at the 5k-feature init budget
 and at Atlas-scale batched KF pairs before keeping it.
 
-The TPU-shaped direct-index variant measured here: sort both feature sets
+The direct-index variant measured here: sort both feature sets
 by node id, pad each node's group to a fixed size G, then ONE batched
 (n_nodes, G, G) block-diagonal matmul — the gather/sort is part of its
 cost, exactly as it would be in production.
 
-Prints one JSON line with ms per variant per shape; run on the TPU for
-the binding numbers (CPU run prints the same shapes for reference).
+Prints one JSON line with ms per variant per shape on JAX's default
+device; only a run on the accelerator gives numbers worth keeping.
 """
 
 import json
@@ -31,17 +31,14 @@ os.environ.setdefault("TF_CPP_MIN_LOG_LEVEL", "3")
 
 import jax
 
-if os.environ.get("DRIVE_PLATFORM", "tpu") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-
-from orbslam3_tpu.utils import enable_compile_cache
+from orbslam3_jax.utils import enable_compile_cache
 
 enable_compile_cache()
 
 import numpy as np
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import matching
+from orbslam3_jax.ops import matching
 
 
 def full_matmul_match(da, db):

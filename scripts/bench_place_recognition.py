@@ -32,9 +32,7 @@ os.environ["XLA_FLAGS"] = (
 
 import jax
 
-if os.environ.get("DRIVE_PLATFORM", "cpu") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-from orbslam3_tpu.utils import enable_compile_cache
+from orbslam3_jax.utils import enable_compile_cache
 
 enable_compile_cache()
 
@@ -54,10 +52,10 @@ def main():
     args = ap.parse_args()
 
     import make_synth_euroc as gen
-    from orbslam3_tpu.atlas.kfdb import KeyFrameDB
-    from orbslam3_tpu.io import vocab_io
-    from orbslam3_tpu.ops import bow, features as feat
-    from orbslam3_tpu.parallel import kfdb_sharded
+    from orbslam3_jax.atlas.kfdb import KeyFrameDB
+    from orbslam3_jax.io import vocab_io
+    from orbslam3_jax.ops import bow, features as feat
+    from orbslam3_jax.parallel import kfdb_sharded
 
     voc = vocab_io.load_binary_vocabulary(args.vocab)
     orb = feat.OrbParams(n_features=1000, n_levels=8)

@@ -1,4 +1,4 @@
-"""2-host distributed BA drive — the DCN analog (SURVEY §7 step 9).
+"""2-host distributed BA drive — the multi-host analog (SURVEY §7 step 9).
 
 Spawns TWO OS processes, each owning one CPU device, joined with
 `jax.distributed`; the map-point axis of a global BA problem is block-
@@ -39,8 +39,8 @@ def child(proc_id: int, nprocs: int = NPROC, bench: bool = False):
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from orbslam3_tpu.optim import ba
-    from orbslam3_tpu.parallel import ba_sharded
+    from orbslam3_jax.optim import ba
+    from orbslam3_jax.parallel import ba_sharded
 
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from synthetic import make_scene, perturb_poses
@@ -132,7 +132,7 @@ def child(proc_id: int, nprocs: int = NPROC, bench: bool = False):
 def _spawn(nprocs: int, bench: bool, pin: bool, cores_per: int = 2):
     """Launch `nprocs` children; with `pin`, each gets its own `cores_per`
     host cores (taskset) so strong-scaling timings compare fixed per-host
-    resources — the honest DCN analog on one machine."""
+    resources — the honest multi-host analog on one machine."""
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
@@ -158,7 +158,7 @@ def main():
     ap.add_argument("--bench", action="store_true")
     ap.add_argument("--curve", action="store_true",
                     help="strong-scaling curve at 1 core per 'host' for "
-                         "n in {1,2,4} — the 4-core sandbox host cannot "
+                         "n in {1,2,4} — a 4-core host cannot "
                          "grant 4 hosts x 2 cores, so the >=4-shard point "
                          "uses the 1-core-per-host ladder (fixed per-host "
                          "resources throughout)")

@@ -10,19 +10,16 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ.setdefault("TF_CPP_MIN_LOG_LEVEL", "3")
-import jax
-if os.environ.get("DRIVE_PLATFORM", "cpu") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-from orbslam3_tpu.utils import enable_compile_cache
+from orbslam3_jax.utils import enable_compile_cache
 enable_compile_cache()
 
 import numpy as np
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import features as feat
-from orbslam3_tpu.ops import matching, lie
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.optim import pose_only
+from orbslam3_jax.ops import features as feat
+from orbslam3_jax.ops import matching, lie
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.optim import pose_only
 
 rng = np.random.default_rng(7)
 H, W = 480, 640

@@ -16,18 +16,14 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 os.environ.setdefault("TF_CPP_MIN_LOG_LEVEL", "3")
-import jax
-
-if os.environ.get("DRIVE_PLATFORM", "cpu") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-from orbslam3_tpu.utils import enable_compile_cache
+from orbslam3_jax.utils import enable_compile_cache
 
 enable_compile_cache()
 
 import numpy as np
 
-from orbslam3_tpu.pipeline.tracking import TrackState
-from orbslam3_tpu.eval.ate import ate_rmse
+from orbslam3_jax.pipeline.tracking import TrackState
+from orbslam3_jax.eval.ate import ate_rmse
 from multimap_replay import Scene, make_system, replay
 
 scene = Scene()
@@ -51,7 +47,7 @@ print(f"multi-map ATE RMSE (Sim3, both sweeps after merge): {err:.4f} m over 7.9
 # (residual Sim3 + the two monocular maps' independent internal scales),
 # not in either map's structure.
 # ---------------------------------------------------------------------------
-from orbslam3_tpu.eval.ate import associate, umeyama
+from orbslam3_jax.eval.ate import associate, umeyama
 
 ia, ib = associate(ts_est, gt_ts, 0.01)
 est_m = np.asarray(pos_est)[ia]

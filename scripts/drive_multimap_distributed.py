@@ -1,7 +1,7 @@
 """BASELINE config 5 END-TO-END: multi-sequence Atlas with map merging +
 global BA ACROSS 2 HOSTS, executed from the live pipeline (not a sidecar).
 
-Two OS processes (the DCN analog: gloo over localhost, each pinned to its
+Two OS processes (the multi-host analog: gloo over localhost, each pinned to its
 own 2 cores) replay the SAME multi-map scenario as `drive_multimap.py`
 (scripts/multimap_replay.py) as SPMD replicas, with
 `System.enable_distributed()` — so when tracking loses, stores the map,
@@ -43,11 +43,11 @@ def run_replay(nprocs: int, proc_id: int):
             num_processes=nprocs, process_id=proc_id,
         )
         assert len(jax.devices()) == nprocs
-    from orbslam3_tpu.utils import enable_compile_cache
+    from orbslam3_jax.utils import enable_compile_cache
 
     enable_compile_cache()
     import numpy as np
-    from orbslam3_tpu.eval.ate import ate_rmse
+    from orbslam3_jax.eval.ate import ate_rmse
     from multimap_replay import Scene, make_system, replay
 
     scene = Scene()

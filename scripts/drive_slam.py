@@ -10,23 +10,19 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ.setdefault("TF_CPP_MIN_LOG_LEVEL", "3")
-import jax
-
-if os.environ.get("DRIVE_PLATFORM", "cpu") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-from orbslam3_tpu.utils import enable_compile_cache
+from orbslam3_jax.utils import enable_compile_cache
 
 enable_compile_cache()
 
 import numpy as np
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import features as feat
-from orbslam3_tpu.ops import lie
-from orbslam3_tpu.system import System, Sensor
-from orbslam3_tpu.pipeline.tracking import TrackState
-from orbslam3_tpu.eval.ate import ate_rmse
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import features as feat
+from orbslam3_jax.ops import lie
+from orbslam3_jax.system import System, Sensor
+from orbslam3_jax.pipeline.tracking import TrackState
+from orbslam3_jax.eval.ate import ate_rmse
 
 H, W = 240, 320
 FOCAL = 260.0
@@ -81,8 +77,8 @@ err = ate_rmse(ts_est, pos_est, gt_ts, gt_pos, with_scale=True, max_dt=0.01)
 print(f"ATE RMSE (Sim3-aligned): {err:.4f} m over {len(ts_est)} tracked frames")
 
 # Keyframe trajectory after a final global BA (exercises pipeline/gba.py).
-from orbslam3_tpu.pipeline.gba import global_ba
-from orbslam3_tpu.ops.features import sigma2 as sigma2_fn
+from orbslam3_jax.pipeline.gba import global_ba
+from orbslam3_jax.ops.features import sigma2 as sigma2_fn
 
 cost = global_ba(slam.store, cam.CameraModel.PINHOLE, params, sigma2_fn(orb))
 s = slam.store.state

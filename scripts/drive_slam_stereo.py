@@ -10,23 +10,19 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ.setdefault("TF_CPP_MIN_LOG_LEVEL", "3")
-import jax
-
-if os.environ.get("DRIVE_PLATFORM", "cpu") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-from orbslam3_tpu.utils import enable_compile_cache
+from orbslam3_jax.utils import enable_compile_cache
 
 enable_compile_cache()
 
 import numpy as np
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import features as feat
-from orbslam3_tpu.ops import lie
-from orbslam3_tpu.system import System, Sensor
-from orbslam3_tpu.pipeline.tracking import TrackState
-from orbslam3_tpu.eval.ate import ate_rmse, umeyama, associate
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import features as feat
+from orbslam3_jax.ops import lie
+from orbslam3_jax.system import System, Sensor
+from orbslam3_jax.pipeline.tracking import TrackState
+from orbslam3_jax.eval.ate import ate_rmse, umeyama, associate
 
 H, W = 240, 320
 FOCAL = 260.0

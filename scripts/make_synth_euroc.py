@@ -1,6 +1,6 @@
 """Generate a synthetic EuRoC-format (mav0-layout) sequence at real scale.
 
-The sandbox has no dataset downloads, so the EuRoC-scale validation runs on
+No dataset ships with the repository, so the EuRoC-scale validation runs on
 a rendered sequence with the exact on-disk layout the reference's loaders
 expect (`/root/reference/Examples/Monocular-Inertial/mono_inertial_euroc.cc:
 228-287`): `mav0/cam0/data.csv` + `data/<ns>.png`, `mav0/imu0/data.csv`,

@@ -18,10 +18,10 @@ global BA runs (`LoopClosing.cc:1967`).
 import numpy as np
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import bow
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import features as feat
-from orbslam3_tpu.ops import lie
+from orbslam3_jax.ops import bow
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import features as feat
+from orbslam3_jax.ops import lie
 
 H, W = 240, 320
 FOCAL = 260.0
@@ -96,7 +96,7 @@ class Scene:
 
 
 def make_system(scene: Scene, distributed: bool = False, post_merge_gba: bool = True):
-    from orbslam3_tpu.system import System, Sensor
+    from orbslam3_jax.system import System, Sensor
 
     slam = System(
         Sensor.MONOCULAR, cam.CameraModel.PINHOLE, scene.params, (W, H),

@@ -1,4 +1,4 @@
-"""EuRoC sequence runner — the TPU-native `mono_euroc` / `mono_inertial_euroc`.
+"""EuRoC sequence runner — this engine's `mono_euroc` / `mono_inertial_euroc`.
 
 Mirrors the reference example mains (`/root/reference/Examples/Monocular/
 mono_euroc.cc`, `Examples/Monocular-Inertial/mono_inertial_euroc.cc`):
@@ -20,7 +20,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 os.environ.setdefault("TF_CPP_MIN_LOG_LEVEL", "3")
-from orbslam3_tpu.utils import enable_compile_cache
+from orbslam3_jax.utils import enable_compile_cache
 
 enable_compile_cache()
 
@@ -45,11 +45,11 @@ def main():
                          "cached here if missing")
     args = ap.parse_args()
 
-    from orbslam3_tpu import config as cfg
-    from orbslam3_tpu.io import datasets
-    from orbslam3_tpu.ops import imu as imu_ops
-    from orbslam3_tpu.system import System, Sensor
-    from orbslam3_tpu.eval.ate import ate_rmse
+    from orbslam3_jax import config as cfg
+    from orbslam3_jax.io import datasets
+    from orbslam3_jax.ops import imu as imu_ops
+    from orbslam3_jax.system import System, Sensor
+    from orbslam3_jax.eval.ate import ate_rmse
 
     settings = cfg.load_settings(args.settings)
     seq = datasets.load_euroc_images(args.seq_dir, args.timestamps)
@@ -79,10 +79,10 @@ def main():
     if not args.no_loop:
         # Place recognition (reloc + loop closing), as the reference
         # always runs it (`System.cc:83-95`). The stock ORBvoc isn't
-        # shipped in this sandbox, so train a DBoW2-style tree from the
+        # shipped with this repository, so train a DBoW2-style tree from the
         # sequence itself and cache it (`ops/bow.build_vocabulary`,
         # ref `TemplatedVocabulary::create`).
-        from orbslam3_tpu.ops import bow, features as feat_ops
+        from orbslam3_jax.ops import bow, features as feat_ops
         import jax.numpy as jnp
 
         voc = None
@@ -108,7 +108,7 @@ def main():
         # `Tracking.cc:1239-1257`).
         slam.enable_multimap(voc)
 
-    from orbslam3_tpu.utils import timing
+    from orbslam3_jax.utils import timing
     if os.environ.get("PROFILE"):
         timing.enable()
 

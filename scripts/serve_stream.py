@@ -1,7 +1,7 @@
-"""Live-ingest SLAM server — the TPU-native analog of the reference's
+"""Live-ingest SLAM server — the analog of the reference's
 ROS nodes (`Examples/ROS/ORB_SLAM3/src/ros_mono{,_inertial}.cc`): a
 producer streams frames (+IMU) over a UNIX socket; this process owns the
-System and streams tracked poses back (protocol: `orbslam3_tpu/io/
+System and streams tracked poses back (protocol: `orbslam3_jax/io/
 stream.py`).
 
 Server:  python scripts/serve_stream.py SETTINGS.yaml --socket /tmp/slam.sock
@@ -20,11 +20,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 os.environ.setdefault("TF_CPP_MIN_LOG_LEVEL", "3")
-import jax
-
-if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-from orbslam3_tpu.utils import enable_compile_cache
+from orbslam3_jax.utils import enable_compile_cache
 
 enable_compile_cache()
 
@@ -32,10 +28,10 @@ import numpy as np
 
 
 def run_server(args):
-    from orbslam3_tpu import config as cfg
-    from orbslam3_tpu.io import stream
-    from orbslam3_tpu.ops import imu as imu_ops
-    from orbslam3_tpu.system import System, Sensor
+    from orbslam3_jax import config as cfg
+    from orbslam3_jax.io import stream
+    from orbslam3_jax.ops import imu as imu_ops
+    from orbslam3_jax.system import System, Sensor
 
     settings = cfg.load_settings(args.settings)
     imu_calib = None
@@ -56,7 +52,7 @@ def run_server(args):
     )
     slam.enable_async_mapping()
     if args.vocab and os.path.exists(args.vocab):
-        from orbslam3_tpu.ops import bow
+        from orbslam3_jax.ops import bow
 
         slam.enable_place_recognition(bow.load_npz(args.vocab))
 
@@ -80,7 +76,7 @@ def run_server(args):
 
 
 def run_client(args):
-    from orbslam3_tpu.io import datasets, stream
+    from orbslam3_jax.io import datasets, stream
 
     sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
     sock.connect(args.socket)
@@ -112,7 +108,7 @@ def run_client(args):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("settings")
-    ap.add_argument("--socket", default="/tmp/orbslam3_tpu.sock")
+    ap.add_argument("--socket", default="/tmp/orbslam3_jax.sock")
     ap.add_argument("--mode", choices=["mono", "mono-vi"], default="mono")
     ap.add_argument("--vocab", default=None)
     ap.add_argument("--client", default=None, help="SEQ_DIR: act as producer")

@@ -24,11 +24,7 @@ sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "scripts"))
 os.environ.setdefault("TF_CPP_MIN_LOG_LEVEL", "3")
 
-import jax
-
-if os.environ.get("DRIVE_PLATFORM", "cpu") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-from orbslam3_tpu.utils import enable_compile_cache
+from orbslam3_jax.utils import enable_compile_cache
 
 enable_compile_cache()
 
@@ -46,8 +42,8 @@ def main():
     args = ap.parse_args()
 
     import make_synth_euroc as gen
-    from orbslam3_tpu.ops import bow, features as feat
-    from orbslam3_tpu.io import vocab_io
+    from orbslam3_jax.ops import bow, features as feat
+    from orbslam3_jax.io import vocab_io
 
     orb = feat.OrbParams(n_features=1000, n_levels=8)
     train = []

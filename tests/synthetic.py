@@ -4,8 +4,8 @@ module tests on synthetic scenes — known poses/points => residuals ~ 0)."""
 import numpy as np
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import lie
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import lie
 
 
 def make_scene(

@@ -6,11 +6,11 @@ synchronous pass does, drains on flush, and honors interrupt/abort."""
 import numpy as np
 import pytest
 
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import features as feat
-from orbslam3_tpu.system import System, Sensor
-from orbslam3_tpu.pipeline.tracking import TrackState
-from orbslam3_tpu.eval.ate import ate_rmse
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import features as feat
+from orbslam3_jax.system import System, Sensor
+from orbslam3_jax.pipeline.tracking import TrackState
+from orbslam3_jax.eval.ate import ate_rmse
 
 from test_e2e_mono import H, W, FOCAL, make_world, render, camera_path
 
@@ -56,7 +56,7 @@ def test_async_matches_sync_quality():
 
 def test_executor_protocol():
     """Queue/idle/interrupt/abort semantics without any device work."""
-    from orbslam3_tpu.pipeline.async_mapping import AsyncMapper
+    from orbslam3_jax.pipeline.async_mapping import AsyncMapper
 
     calls = []
 

@@ -2,8 +2,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from orbslam3_tpu.atlas import store as st
-from orbslam3_tpu.atlas.atlas import Atlas
+from orbslam3_jax.atlas import store as st
+from orbslam3_jax.atlas.atlas import Atlas
 
 
 def small_store():
@@ -94,12 +94,12 @@ def test_system_save_load_relocalize(rng, tmp_path):
     `System.h:163-165` — dormant there, functional here): map a scene,
     save, load into a FRESH System, and verify per-frame relocalization
     re-attaches tracking to the loaded map with a consistent trajectory."""
-    from orbslam3_tpu.ops import bow
-    from orbslam3_tpu.ops import cameras as cam
-    from orbslam3_tpu.ops import features as feat
-    from orbslam3_tpu.system import System, Sensor
-    from orbslam3_tpu.pipeline.tracking import TrackState
-    from orbslam3_tpu.eval.ate import ate_rmse
+    from orbslam3_jax.ops import bow
+    from orbslam3_jax.ops import cameras as cam
+    from orbslam3_jax.ops import features as feat
+    from orbslam3_jax.system import System, Sensor
+    from orbslam3_jax.pipeline.tracking import TrackState
+    from orbslam3_jax.eval.ate import ate_rmse
     from tests.test_e2e_mono import (
         H, W, FOCAL, make_world, render, camera_path,
     )

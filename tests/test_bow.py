@@ -2,7 +2,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from orbslam3_tpu.ops import bow
+from orbslam3_jax.ops import bow
 
 
 @pytest.fixture(scope="module")

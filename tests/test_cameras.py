@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from orbslam3_tpu.ops import cameras as cam
+from orbslam3_jax.ops import cameras as cam
 
 # EuRoC cam0 calibration (Examples/Monocular/EuRoC.yaml in the reference).
 EUROC = cam.make_pinhole(458.654, 457.296, 367.215, 248.375, -0.28340811, 0.07395907, 0.00019359, 1.76187114e-05)

@@ -12,11 +12,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import features as feat
-from orbslam3_tpu.parallel.context import DistributedContext
-from orbslam3_tpu.parallel import ba_sharded
-from orbslam3_tpu.pipeline.gba import AsyncGBA, global_ba
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import features as feat
+from orbslam3_jax.parallel.context import DistributedContext
+from orbslam3_jax.parallel import ba_sharded
+from orbslam3_jax.pipeline.gba import AsyncGBA, global_ba
 
 from test_gba_async import NF, PARAMS, _build_store, _reproj_rmse
 
@@ -82,8 +82,8 @@ def test_kfdb_sharded_query_matches_dense_top1():
     """The mesh-sharded Atlas query surfaces the same best keyframe as the
     dense single-device scoring (covisibility grouping aside — scores of
     individual KFs are identical L1 similarities)."""
-    from orbslam3_tpu.atlas.kfdb import KeyFrameDB
-    from orbslam3_tpu.ops import bow as bow_ops
+    from orbslam3_jax.atlas.kfdb import KeyFrameDB
+    from orbslam3_jax.ops import bow as bow_ops
 
     rng = np.random.default_rng(11)
     voc = bow_ops.build_vocabulary(

@@ -6,12 +6,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import features as feat
-from orbslam3_tpu.ops import lie
-from orbslam3_tpu.system import System, Sensor
-from orbslam3_tpu.pipeline.tracking import TrackState
-from orbslam3_tpu.eval.ate import ate_rmse
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import features as feat
+from orbslam3_jax.ops import lie
+from orbslam3_jax.system import System, Sensor
+from orbslam3_jax.pipeline.tracking import TrackState
+from orbslam3_jax.eval.ate import ate_rmse
 
 H, W = 240, 320
 FOCAL = 260.0

@@ -2,8 +2,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from orbslam3_tpu.ops import features as feat
-from orbslam3_tpu.ops import matching
+from orbslam3_jax.ops import features as feat
+from orbslam3_jax.ops import matching
 
 
 def synthetic_corners(rng, H=240, W=320, n=40, half=4):

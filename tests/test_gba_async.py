@@ -5,10 +5,10 @@ spanning-tree-style propagation to keyframes/points created mid-solve
 import numpy as np
 import jax.numpy as jnp
 
-from orbslam3_tpu.atlas import store as st
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import features as feat
-from orbslam3_tpu.pipeline.gba import AsyncGBA
+from orbslam3_jax.atlas import store as st
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import features as feat
+from orbslam3_jax.pipeline.gba import AsyncGBA
 
 NF = 32
 PARAMS = cam.make_pinhole(300.0, 300.0, 160.0, 120.0)

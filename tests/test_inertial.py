@@ -3,10 +3,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import imu as imu_ops
-from orbslam3_tpu.ops import lie
-from orbslam3_tpu.optim import inertial
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import imu as imu_ops
+from orbslam3_jax.ops import lie
+from orbslam3_jax.optim import inertial
 
 from tests.test_imu import make_calib
 

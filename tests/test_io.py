@@ -3,10 +3,10 @@ import os
 import numpy as np
 import pytest
 
-from orbslam3_tpu import config as cfg
-from orbslam3_tpu.io import trajectory as tio
-from orbslam3_tpu.eval.ate import ate_rmse, umeyama
-from orbslam3_tpu.ops import cameras as cam
+from orbslam3_jax import config as cfg
+from orbslam3_jax.io import trajectory as tio
+from orbslam3_jax.eval.ate import ate_rmse, umeyama
+from orbslam3_jax.ops import cameras as cam
 
 
 REFERENCE_YAML = "/root/reference/Examples/Monocular/EuRoC.yaml"
@@ -39,7 +39,7 @@ def test_load_reference_imu_yaml():
 
 
 def test_trajectory_roundtrip(tmp_path, rng):
-    from orbslam3_tpu.ops import lie
+    from orbslam3_jax.ops import lie
     import jax.numpy as jnp
 
     n = 20
@@ -78,8 +78,8 @@ def test_save_trajectory_euroc(tmp_path, rng):
     """`System.save_trajectory_euroc` semantics vs `System.cc:599-712`:
     largest-map selection, first-KF re-rooting, EuRoC row format."""
     import jax.numpy as jnp
-    from orbslam3_tpu.ops import features as feat
-    from orbslam3_tpu.system import System, Sensor
+    from orbslam3_jax.ops import features as feat
+    from orbslam3_jax.system import System, Sensor
 
     params = cam.make_pinhole(100.0, 100.0, 64.0, 48.0)
     slam = System(

@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from orbslam3_tpu.ops import lie
+from orbslam3_jax.ops import lie
 
 
 def random_w(rng, n=64, scale=2.0):

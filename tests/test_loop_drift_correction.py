@@ -23,7 +23,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUNNER = os.path.join(REPO, "scripts", "run_sequence.py")
 GEN = os.path.join(REPO, "scripts", "make_synth_euroc.py")
 
-# Calibrated on v5e (BASELINE.md row 1 drift note): density 0.28 at
+# Calibrated on an accelerator replay (BASELINE.md row 1 drift note): density 0.28 at
 # radius 3.0 accumulates ~0.13 m of drift at the first revisit while
 # keeping tracking alive the whole lap (0.18 was too sparse: hard LOST
 # mid-lap). Measured: closure kf56->kf2 ATE 0.1342 -> 0.0655 m at

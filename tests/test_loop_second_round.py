@@ -11,10 +11,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from orbslam3_tpu.atlas import store as st
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import features as feat
-from orbslam3_tpu.pipeline.loop_closing import LoopCloser
+from orbslam3_jax.atlas import store as st
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import features as feat
+from orbslam3_jax.pipeline.loop_closing import LoopCloser
 
 NF = 512
 W, H = 320, 240

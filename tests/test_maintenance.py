@@ -8,7 +8,7 @@ Reference behaviors: `MapPoint::Replace` (via `ORBmatcher::Fuse`,
 import jax.numpy as jnp
 import numpy as np
 
-from orbslam3_tpu.atlas import store as st
+from orbslam3_jax.atlas import store as st
 
 
 def _small_store(Kmax=8, Pmax=64, Nf=16):

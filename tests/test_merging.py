@@ -2,10 +2,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from orbslam3_tpu.atlas import store as st
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import lie
-from orbslam3_tpu.pipeline.map_merging import merge_maps, transform_map
+from orbslam3_jax.atlas import store as st
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import lie
+from orbslam3_jax.pipeline.map_merging import merge_maps, transform_map
 
 
 def make_store(rng, n_kf=4, n_mp=50, offset=0.0):
@@ -88,7 +88,7 @@ def test_merge_maps(rng):
 def test_inertial_merge_gates():
     """`gate_inertial_sim3`: scale gate 0.9-1.1 + yaw-only rotation for
     gravity-calibrated maps (`LoopClosing.cc:107,120-127`)."""
-    from orbslam3_tpu.pipeline.multimap import gate_inertial_sim3
+    from orbslam3_jax.pipeline.multimap import gate_inertial_sim3
 
     Rfull = np.asarray(
         lie.exp_so3(jnp.asarray([0.05, -0.08, 0.6], jnp.float32))

@@ -2,9 +2,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import lie
-from orbslam3_tpu.optim import ba, pose_only
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import lie
+from orbslam3_jax.optim import ba, pose_only
 
 from tests.synthetic import make_scene, perturb_poses
 

@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.optim import ba
-from orbslam3_tpu.parallel import ba_sharded
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.optim import ba
+from orbslam3_jax.parallel import ba_sharded
 
 from tests.synthetic import make_scene, perturb_poses
 from tests.test_optim import _ba_problem_from_scene
@@ -76,8 +76,8 @@ def test_dryrun_multichip():
 
 def test_sharded_kfdb_query(rng):
     """Sharded database query == single-device detect ranking."""
-    from orbslam3_tpu.ops import bow
-    from orbslam3_tpu.parallel import kfdb_sharded
+    from orbslam3_jax.ops import bow
+    from orbslam3_jax.parallel import kfdb_sharded
 
     protos = rng.integers(0, 256, size=(30, 32), dtype=np.uint8)
     descs = []

@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from orbslam3_tpu.ops import lie
-from orbslam3_tpu.optim import pose_graph as pg
+from orbslam3_jax.ops import lie
+from orbslam3_jax.optim import pose_graph as pg
 
 
 def drifted_loop(rng, K=20, drift_rot=0.002, drift_t=0.01, drift_s=1.004):

@@ -4,11 +4,11 @@ from visual matches + one preintegrated IMU edge to a fixed keyframe."""
 import jax.numpy as jnp
 import numpy as np
 
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import imu as imu_ops
-from orbslam3_tpu.ops import lie
-from orbslam3_tpu.optim.pose_inertial import optimize_pose_inertial
-from orbslam3_tpu.optim.pose_only import PoseObs
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import imu as imu_ops
+from orbslam3_jax.ops import lie
+from orbslam3_jax.optim.pose_inertial import optimize_pose_inertial
+from orbslam3_jax.optim.pose_only import PoseObs
 
 G = np.array([0.0, 0.0, -9.81], np.float32)
 
@@ -130,7 +130,7 @@ def test_pose_inertial_last_frame_chain():
     the marginalization prior chain recovers both states
     (`PoseInertialOptimizationLastFrame` + `Marginalize`,
     ref `Optimizer.cc:8068,5366`)."""
-    from orbslam3_tpu.optim.pose_inertial import (
+    from orbslam3_jax.optim.pose_inertial import (
         optimize_pose_inertial_last_frame, psd_clamp)
 
     calib = imu_ops.ImuCalib.create(

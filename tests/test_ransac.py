@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from orbslam3_tpu.ops import lie, ransac
+from orbslam3_jax.ops import lie, ransac
 
 
 def two_view_scene(rng, n=300, planar=False, outlier_frac=0.15):
@@ -76,7 +76,7 @@ def test_two_view_degenerate_fails(rng):
 
 
 def test_pnp_ransac(rng):
-    from orbslam3_tpu.ops.ransac import pnp_ransac
+    from orbslam3_jax.ops.ransac import pnp_ransac
 
     n = 200
     pts = np.stack(
@@ -108,7 +108,7 @@ def test_mlpnp_refine_beats_dlt_under_noise(rng):
     """The maximum-likelihood polish (`MLPnPsolver.cpp:139-160`
     refineGaussNewton analog) must beat the algebraic DLT refit under
     high keypoint noise — the round-3 verdict's un-compared axis."""
-    from orbslam3_tpu.ops.ransac import mlpnp_refine, pnp_ransac
+    from orbslam3_jax.ops.ransac import mlpnp_refine, pnp_ransac
 
     n = 80
     Xw = np.stack(
@@ -129,7 +129,7 @@ def test_mlpnp_refine_beats_dlt_under_noise(rng):
     # Same pipeline minus the ML stage: refine from the ML answer is a
     # fixed point, so instead compare the ML pose against the pure DLT
     # refit pose reconstructed by skipping mlpnp_refine.
-    import orbslam3_tpu.ops.ransac as rr
+    import orbslam3_jax.ops.ransac as rr
 
     orig = rr.mlpnp_refine
     rr.mlpnp_refine = lambda R, t, *a, **k: (R, t)

@@ -7,8 +7,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from orbslam3_tpu.config import RectifyConfig
-from orbslam3_tpu.ops.rectify import StereoRectifier, build_rectify_map, remap_bilinear
+from orbslam3_jax.config import RectifyConfig
+from orbslam3_jax.ops.rectify import StereoRectifier, build_rectify_map, remap_bilinear
 
 FX = FY = 300.0
 CX, CY = 160.0, 120.0
@@ -103,7 +103,7 @@ def test_yaml_rect_block_roundtrip(tmp_path):
         os.path.abspath(__file__))), "scripts"))
     import make_synth_euroc as gen
 
-    from orbslam3_tpu import config as cfg
+    from orbslam3_jax import config as cfg
 
     p = tmp_path / "raw.yaml"
     p.write_text(gen.raw_stereo_yaml())

@@ -11,7 +11,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from orbslam3_tpu.ops import cameras as cam
+from orbslam3_jax.ops import cameras as cam
 
 from test_e2e_mono import H, W, FOCAL, make_world, render, camera_path
 

@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import lie
-from orbslam3_tpu.optim import sim3 as sim3_mod
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import lie
+from orbslam3_jax.optim import sim3 as sim3_mod
 
 
 def _setup(rng, N=120, n_out=0, noise=0.2):

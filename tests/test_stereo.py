@@ -2,9 +2,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import features as feat
-from orbslam3_tpu.ops import lie, stereo
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import features as feat
+from orbslam3_jax.ops import lie, stereo
 
 from tests.test_features import synthetic_corners
 

@@ -8,10 +8,10 @@ import threading
 import numpy as np
 import pytest
 
-from orbslam3_tpu.io import stream
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import features as feat
-from orbslam3_tpu.system import System, Sensor
+from orbslam3_jax.io import stream
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import features as feat
+from orbslam3_jax.system import System, Sensor
 
 from test_e2e_mono import H, W, FOCAL, make_world, render, camera_path
 

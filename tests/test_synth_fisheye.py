@@ -11,7 +11,7 @@ import sys
 import numpy as np
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import cameras as cam
+from orbslam3_jax.ops import cameras as cam
 
 sys.path.insert(0, os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts"))
@@ -49,7 +49,7 @@ def test_fisheye_sequence_layout(tmp_path):
          str(out), "--frames", "3", "--fisheye"],
         check=True, capture_output=True, timeout=300,
     )
-    from orbslam3_tpu import config as cfg
+    from orbslam3_jax import config as cfg
 
     s = cfg.load_settings(str(out / "settings.yaml"))
     assert s.camera.model == cam.CameraModel.KB8

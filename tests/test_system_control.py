@@ -6,10 +6,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import features as feat
-from orbslam3_tpu.system import System, Sensor
-from orbslam3_tpu.pipeline.tracking import TrackState
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import features as feat
+from orbslam3_jax.system import System, Sensor
+from orbslam3_jax.pipeline.tracking import TrackState
 
 from test_e2e_mono import H, W, FOCAL, make_world, render, camera_path
 
@@ -77,9 +77,9 @@ def test_timestamp_reorder_resets_active_map(rng):
 def test_imu_watchdog_fires_on_stationary_kfs():
     """Unit-level: three near-stationary keyframes inside the first 10 s
     -> bad_imu; real motion -> no trigger."""
-    from orbslam3_tpu.atlas.store import MapStore
-    from orbslam3_tpu.pipeline.local_mapping import LocalMapper
-    from orbslam3_tpu.ops import imu as imu_ops
+    from orbslam3_jax.atlas.store import MapStore
+    from orbslam3_jax.pipeline.local_mapping import LocalMapper
+    from orbslam3_jax.ops import imu as imu_ops
 
     params = cam.make_pinhole(FOCAL, FOCAL, W / 2, H / 2)
     calib = imu_ops.ImuCalib.create(

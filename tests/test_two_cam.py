@@ -7,10 +7,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import lie
-from orbslam3_tpu.optim import ba as ba_mod
-from orbslam3_tpu.optim import pose_only as po
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import lie
+from orbslam3_jax.optim import ba as ba_mod
+from orbslam3_jax.optim import pose_only as po
 
 
 def _rig(rng):

@@ -8,9 +8,9 @@ import urllib.request
 
 import numpy as np
 
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import features as feat
-from orbslam3_tpu.system import System, Sensor
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import features as feat
+from orbslam3_jax.system import System, Sensor
 
 from test_e2e_mono import H, W, FOCAL, make_world, render, camera_path
 
@@ -34,7 +34,7 @@ def test_live_viewer_serves_tracking_state():
     assert viewer.port > 0
 
     status, page = _get(viewer.port, "/")
-    assert status == 200 and b"orbslam3_tpu viewer" in page
+    assert status == 200 and b"orbslam3_jax viewer" in page
 
     for k, (R, t) in enumerate(poses):
         slam.track_monocular(render(params, R, t, pts, shades), k * 0.1)

@@ -10,9 +10,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from orbslam3_tpu.ops import bow
-from orbslam3_tpu.ops import cameras as cam
-from orbslam3_tpu.ops import features as feat
+from orbslam3_jax.ops import bow
+from orbslam3_jax.ops import cameras as cam
+from orbslam3_jax.ops import features as feat
 
 from test_e2e_mono import H, W, FOCAL, make_world, render, camera_path
 
@@ -67,7 +67,7 @@ def test_heldout_scene_recall():
     # change, not descriptor dropout; round-3 review flagged the dropout
     # shortcut as under-perturbing). ~4 deg extra yaw/pitch and a lateral/
     # depth offset relative to the indexed path.
-    from orbslam3_tpu.ops import lie
+    from orbslam3_jax.ops import lie
 
     params, pts, shades = _scene(33)
     path = camera_path(8)

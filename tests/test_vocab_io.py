@@ -2,9 +2,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from orbslam3_tpu.io import vocab_io
-from orbslam3_tpu.io.native import get_lib
-from orbslam3_tpu.ops import bow
+from orbslam3_jax.io import vocab_io
+from orbslam3_jax.io.native import get_lib
+from orbslam3_jax.ops import bow
 
 
 @pytest.fixture(scope="module")
